@@ -1,5 +1,5 @@
-"""hevcasm_tpu — a TPU-native HEVC Main-profile (8-bit) encode inner-loop
-engine, built from scratch in JAX/XLA/Pallas.
+"""hevcasm_tpu — an HEVC Main-profile (8-bit) encode inner-loop engine,
+built from scratch in JAX/XLA.
 
 Capability-equivalent to kupix/hevcasm (reference mounted at
 /root/reference): SAD/SSD/SATD block matching, forward/inverse DCT & DST
@@ -11,7 +11,7 @@ frame/GOP-sharded encode loop the reference leaves to its consumers.
 from .config import Config, Tier, DEFAULT
 from . import registry
 from . import ops  # registers the REF tier
-from . import kernels  # registers the optimized tiers (JIT / PALLAS)
+from . import kernels  # registers the optimized tier (JIT)
 
 __version__ = "0.1.0"
 

@@ -2,12 +2,12 @@
 
 The reference library keys every kernel family off a CPU-capability bitmask
 (``hevcasm_instruction_set``, /root/reference/src/lib/hevcasm.h:113-138) probed
-at runtime with cpuid.  On TPU there is no heterogeneous instruction-set zoo;
-the analogous degrees of freedom are *which implementation tier* runs (a pure
-jnp/XLA reference, or a hand-written Pallas kernel) and *how work is laid out*
-(mesh shape, precision).  ``Tier`` is therefore an IntFlag mask exactly like
-the reference's, so callers (and the self-test harness) can force lower tiers
-the same way ``hevcasm_test.c:126-132`` iterates instruction sets.
+at runtime with cpuid.  On an accelerator there is no instruction-set zoo;
+the analogous degrees of freedom are *which implementation tier* runs (the
+plain jnp reference, or its optimized XLA formulation) and *how work is laid
+out* (mesh shape, precision).  ``Tier`` is therefore an IntFlag mask exactly
+like the reference's, so callers (and the self-test harness) can force lower
+tiers the same way ``hevcasm_test.c:126-132`` iterates instruction sets.
 """
 
 from __future__ import annotations
@@ -21,22 +21,20 @@ class Tier(enum.IntFlag):
 
     REF     pure jax.numpy integer implementation; the golden oracle
             (role of the reference's C_REF tier).
-    JIT     same maths, but shape-specialised + jitted as a standalone unit
-            (role of C_OPT).
-    PALLAS  hand-written Pallas TPU kernel (role of the SSE2..AVX2 asm tiers).
+    JIT     same maths, shape-specialised and jitted, often re-expressed
+            as exact integer matmuls (role of C_OPT).
     """
 
     NONE = 0
     REF = 1
     JIT = 2
-    PALLAS = 4
-    ALL = REF | JIT | PALLAS
+    ALL = REF | JIT
 
 
 #: Tiers in descending selection priority; populate() picks the first
 #: available implementation whose tier bit is set in the mask, mirroring the
 #: descending C_REF -> SSE2 -> ... -> AVX2 selection of e.g. sad.c:63-86.
-TIER_PRIORITY = (Tier.PALLAS, Tier.JIT, Tier.REF)
+TIER_PRIORITY = (Tier.JIT, Tier.REF)
 
 
 def tiers_in(mask: Tier):

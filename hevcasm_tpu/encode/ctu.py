@@ -2,7 +2,7 @@
 
 The reference operates on one block at a time and leaves frame traversal to
 callers (SURVEY.md section 0); here the frame traversal IS the batch axis, so
-every kernel call covers the whole frame (full VPU/MXU lanes).
+every kernel call covers the whole frame.
 """
 
 from __future__ import annotations

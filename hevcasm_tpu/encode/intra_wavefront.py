@@ -3,18 +3,18 @@
 SURVEY.md section 7 lists "dependent CTU ordering (wavefront dependencies)"
 as the hardest part it defers; this module implements it.  True HEVC intra
 predicts each block from *reconstructed* neighbours, creating the raster
-dependency (left, above, above-right).  The TPU-native schedule is the WPP
+dependency (left, above, above-right).  The batched schedule is the WPP
 wavefront: with wave index w = 2r + c every dependency of block (r, c) —
 left (w-1), above (w-2), above-right (w-1) — lands in a strictly earlier
 wave, so all blocks of a wave are independent and batch together:
 
     lax.scan over waves  x  batched block slots within a wave
 
-**Skewed canvas.**  The r4 implementation kept the reconstruction in frame
-layout and paid per wave for a vmapped dynamic-slice neighbour gather and a
-2-D scatter of the reconstructed blocks — ~0.85 ms/wave at 1080p (~107
-ms/frame), swamping the arithmetic.  Block (r, c) is now stored at skewed
-block-column c + 2r, which makes every wave COLUMN-ALIGNED:
+**Skewed canvas.**  Keeping the reconstruction in frame layout costs, per
+wave, a vmapped dynamic-slice neighbour gather and a 2-D scatter of the
+reconstructed blocks, which swamp the arithmetic.  Block (r, c) is instead
+stored at skewed block-column c + 2r, which makes every wave
+COLUMN-ALIGNED:
 
   * wave w's blocks all live in skewed column w  -> the write is ONE
     dynamic_update_slice of a (gr*n, n) column;

@@ -44,37 +44,22 @@ class EncodeConfig:
     intra_block: int = 32  # intra prediction block size
     search_range: int = 32
     qp: int = 32
-    # Motion-search scoring metric: "ssd" rides the MXU (exact integer SSD
-    # via batched matmuls, kernels/xla_opt.py), "sad" is the reference-
-    # faithful VPU path.  On x86 SAD is the cheap metric (psadbw); on TPU
-    # the matmul-friendly SSD is — and it is the better distortion proxy.
+    # Motion-search scoring metric: "ssd" is exact integer SSD scored as
+    # batched correlation matmuls (kernels/xla_opt.ssd_grid), "sad" the
+    # reference-faithful |a-b| path.  On x86 SAD is the cheap metric
+    # (psadbw); with matrix units SSD is — and it is the better distortion
+    # proxy.
     me_metric: str = "ssd"
     # "full" = exhaustive +-R grid; "pyramid" = 2-level hierarchical search
     # covering the same window at ~1/60 the arithmetic (motion.pyramid_search).
     me_strategy: str = "full"
-    # Integer-search implementation: "grid" scores a (2R+1)^2 grid per CTU
-    # (ssd_grid/sad_grid kernel + XLA argmin over the materialized grids);
-    # "slab" reads the search windows straight from the reference plane in
-    # 64-row blocks (search_pallas.ssd_grid_plane — no XLA window stack);
-    # "mv" adds an in-kernel argmin; "dma" fetches windows by in-kernel
-    # slab DMA ("mv"/"dma" both measured slower than the XLA-overlapped
-    # alternatives, docs/DESIGN.md section 6 — kept as tested variants).
-    # "auto" picks "slab" on TPU when the geometry fits (64x64 CTU, +-32,
-    # ssd, full, even grid width), else "grid".  All bit-identical.
-    search_impl: str = "auto"
-    # Use the fused Pallas quarter-pel refinement kernel
-    # (kernels/interp_pallas.py); bit-exact with the jnp path.
-    fused_refine: bool = False
-    # Quarter-pel refinement implementation: "mxu" (banded-matrix matmul
-    # FIRs, kernels/interp_xla.py — fastest), "ref" (jnp VPU FIRs).
-    # cfg.fused_refine=True selects the Pallas kernel instead.  All three
-    # are bit-identical.
-    refine_impl: str = "mxu"
-    # Residual pipeline implementation: "mxu" (whole-frame block-diagonal
-    # matmuls, kernels/xla_opt.residual_pipeline_frame — fastest), "pallas"
-    # (per-CTU fused kernel), "ref" (per-TU composition of the REF ops).
-    # All bit-identical.
-    residual_impl: str = "mxu"
+    # Quarter-pel refinement implementation: "xla" (banded-matrix matmul
+    # FIRs, kernels/interp_xla.py), "ref" (jnp FIRs).  Bit-identical.
+    refine_impl: str = "xla"
+    # Residual pipeline implementation: "xla" (whole-frame block-diagonal
+    # matmuls, kernels/xla_opt.residual_pipeline_frame), "ref" (per-TU
+    # composition of the REF ops).  Bit-identical.
+    residual_impl: str = "xla"
     # Intra prediction source: "open_loop" predicts from original-frame
     # neighbours (all blocks parallel); "wavefront" predicts from
     # reconstructed neighbours with the WPP 2r+c wave schedule
@@ -84,23 +69,6 @@ class EncodeConfig:
     # flatness condition holds (H.265 8.4.4.2.3, sps strong_intra_smoothing
     # — HM default on).
     strong_intra_smoothing: bool = True
-    # Inter composition: "stages" runs refine and residual as separate
-    # (refine_impl / residual_impl-selected) passes; "fused" runs the
-    # single-VMEM-residency Pallas kernel (kernels/interp_pallas.py
-    # inter_ctu_fused — refine + transform + quant + reconstruct per CTU,
-    # no HBM intermediate); "fused_batched" is the same kernel with
-    # fused_group CTUs per grid step (per-step overhead amortized);
-    # "fused_dma" additionally pulls the refine windows straight from the
-    # reference plane by in-kernel DMA at the MV offsets (no XLA gather,
-    # no window stack in HBM); "mega" fuses the ENTIRE inner loop — full
-    # search + argmin + refine + residual — into one kernel whose
-    # position-based slab DMA reads the reference plane exactly once per
-    # CTU (kernels/mega_pallas.py; needs search_range in {8,16,24,32}).
-    # All bit-identical; the fused kernels require a TPU backend and
-    # 64x64-CTU / 8x8-TU.
-    inter_impl: str = "stages"
-    # CTUs per grid step for the fused_batched / fused_dma kernels.
-    fused_group: int = 6
     # Per-CTU PU-layout decision (encode/partition.py): ONE base-
     # granularity search + integral-image aggregation gives the exact SSD
     # grid of every rectangular PU; each PU refines with its own MV (one
@@ -116,56 +84,18 @@ class EncodeConfig:
 
     def __post_init__(self):
         # Typos in impl strings must fail loudly, not silently select a
-        # slower path (ADVICE r1).
+        # slower path.
         _check = {
             "me_metric": ("sad", "ssd"),
             "me_strategy": ("full", "pyramid"),
-            "search_impl": ("auto", "grid", "slab", "mv", "dma"),
-            "refine_impl": ("mxu", "ref"),
-            "residual_impl": ("mxu", "pallas", "ref"),
+            "refine_impl": ("xla", "ref"),
+            "residual_impl": ("xla", "ref"),
             "intra_mode": ("open_loop", "wavefront"),
-            "inter_impl": ("stages", "fused", "fused_batched", "fused_dma",
-                           "mega"),
         }
         for field, valid in _check.items():
             v = getattr(self, field)
             if v not in valid:
                 raise ValueError(f"{field}={v!r} (valid: {', '.join(valid)})")
-        if self.search_impl in ("mv", "dma", "slab") and not (
-            self.me_metric == "ssd" and self.me_strategy == "full"
-            and self.ctu == 64 and self.ctu + 2 * self.search_range == 128
-        ):
-            raise ValueError(
-                f"search_impl={self.search_impl!r} covers me_metric='ssd', "
-                "me_strategy='full', ctu=64, search_range=32 "
-                "(use 'auto' or 'grid')"
-            )
-        if self.inter_impl == "mega" and (
-            self.me_metric != "ssd" or self.me_strategy != "full"
-        ):
-            # The mega kernel always runs the exhaustive in-kernel SSD
-            # search; silently ignoring the metric/strategy config would
-            # produce different MVs than 'stages' (ADVICE r3).
-            raise ValueError(
-                "inter_impl='mega' always searches exhaustive SSD; it cannot "
-                "honor me_metric='sad' or me_strategy='pyramid'"
-            )
-        if self.inter_impl == "mega" and (self.tu_sizes or self.pu_decision):
-            # These decisions need the staged composition; falling through
-            # silently would not run the mega kernel at all (ADVICE r3).
-            raise ValueError(
-                "inter_impl='mega' does not compose with tu_sizes/"
-                "pu_decision (use 'stages' or a fused_* mode)"
-            )
-        if self.inter_impl in ("fused", "fused_batched", "fused_dma",
-                               "mega") and self.tu != 8:
-            # The fused kernels hardwire 8x8 TUs while quant params derive
-            # from cfg.tu — running them with another tu would quantize at
-            # the wrong shift (ADVICE r4).
-            raise ValueError(
-                f"inter_impl={self.inter_impl!r} hardwires 8x8 TUs; "
-                f"tu={self.tu} requires inter_impl='stages'"
-            )
         from .partition import PU_LAYOUTS
 
         for name in self.pu_layouts:
@@ -195,56 +125,28 @@ class EncodeConfig:
         return scale, shift
 
 
-def _search_impl_resolved(cfg: EncodeConfig, grid=None) -> str:
-    """Resolve search_impl='auto'.
-
-    'auto' picks 'slab' (windows read straight from the reference plane in
-    64-row blocks — no XLA window stack) when the geometry fits: TPU,
-    exhaustive SSD, 64x64 CTUs, +-32 range, even CTU-grid width.  Measured
-    on v5e (r5, interleaved A/B, 1080p fused_dma frame): slab saves the
-    ~0.15 ms/frame window gather/stitch/centering layout traffic of 'grid'.
-    Otherwise 'grid' (the r4 default); 'mv'/'dma' remain as tested
-    alternatives (both measured slower — docs/DESIGN.md section 6)."""
-    if cfg.search_impl != "auto":
-        return cfg.search_impl
-    import jax as _jax
-
-    if (
-        _jax.default_backend() == "tpu"
-        and cfg.me_metric == "ssd" and cfg.me_strategy == "full"
-        and cfg.ctu == 64 and cfg.search_range == 32
-        and grid is not None and grid[1] % 2 == 0
-    ):
-        return "slab"
-    return "grid"
-
-
 def _integer_search(src_ctus, ref, ref_padded, pos, cfg: EncodeConfig, grid):
-    """The integer-pel ME stage behind every inter path: full/pyramid/DMA
-    per cfg.  Returns (mv_int (n, 2), best (n,)) — all impls bit-identical
-    for the same metric/strategy."""
+    """The integer-pel ME stage behind every inter path: full or pyramid
+    per cfg.  Returns (mv_int (n, 2), best (n,))."""
     r = cfg.search_range
     grid_fn = motion.grid_metric_fn(cfg.me_metric)
     if cfg.me_strategy == "pyramid":
         return motion.pyramid_search(
             src_ctus, ref, ref_padded, pos, r, grid_fn=grid_fn, grid=grid
         )
-    impl = _search_impl_resolved(cfg, grid)
-    if impl == "slab":
-        return motion.full_search_slab(src_ctus, ref_padded, r, grid)
-    if impl == "dma":
-        from ..kernels.search_pallas import search_mv_dma
-
-        return search_mv_dma(src_ctus, ref_padded, pos, r)
-    if impl == "mv":
-        from ..kernels.search_pallas import search_mv
-
-        b = src_ctus.shape[-1]
-        win = motion.extract_aligned_windows(
-            ref_padded, (motion.PAD_L, motion.PAD_L), grid, b, b + 2 * r
-        )
-        return search_mv(src_ctus, win, 2 * r + 1, group=3)
     return motion.full_search(src_ctus, ref_padded, pos, r, grid_fn=grid_fn, grid=grid)
+
+
+def _refine_fn(cfg: EncodeConfig):
+    """The cfg-selected quarter-pel refinement over gathered (B+7)^2
+    windows: (src_ctus, win) -> (pred, frac_idx, cost)."""
+    if cfg.refine_impl == "xla":
+        from ..kernels.interp_xla import refine_quarter_pel_mxu
+
+        return refine_quarter_pel_mxu
+    from ..ops.pred_inter import refine_qpel
+
+    return refine_qpel
 
 
 def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool, luma: bool = True):
@@ -254,15 +156,13 @@ def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool, 
     num_nonzero () int32, cbf (n*(B/tu)^2,) bool flat per-TU coded-block
     flags in ctu.split_blocks order) — the same shapes from every impl.
     """
-    if cfg.residual_impl not in ("mxu", "pallas", "ref"):
-        raise ValueError(f"unknown residual_impl {cfg.residual_impl!r}")
     # HEVC uses the DST-VII for 4x4 intra luma TUs (residual_decode.c:914);
     # chroma always uses the DCT.
     tr_type = 1 if (intra and luma and cfg.tu == 4) else 0
     scale, shift, offset = cfg.quant_params(intra)
     dscale, dshift = cfg.dequant_params()
 
-    if cfg.residual_impl == "mxu":
+    if cfg.residual_impl == "xla":
         from ..kernels.xla_opt import residual_pipeline_frame
 
         rec, nnz, cbf, _ = residual_pipeline_frame(
@@ -270,16 +170,6 @@ def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool, 
             tu=cfg.tu, tr_type=tr_type,
         )
         return rec, nnz, cbf.reshape(-1)
-    if cfg.residual_impl == "pallas":
-        # The fused per-CTU kernel only covers the 64x64-CTU / 8x8-DCT-TU
-        # geometry; anything else falls through to the REF composition.
-        if cfg.tu == 8 and src_blocks.shape[-1] == 64 and tr_type == 0:
-            from ..kernels.residual_pallas import residual_pipeline_ctu
-
-            rec, nnz_tu = residual_pipeline_ctu(
-                src_blocks, pred_blocks, scale, shift, offset, dscale, dshift
-            )
-            return rec, jnp.sum(nnz_tu), (nnz_tu > 0).reshape(-1)
 
     from ..ops.residual import residual_pipeline
 
@@ -321,7 +211,6 @@ def encode_inter_frame(cur: jnp.ndarray, ref: jnp.ndarray, cfg: EncodeConfig = E
         lam = partition.mv_lambda(cfg.qp)
         pred, choice, mv_tiles, best_sad = partition.select_pu_layout_pruned(
             src_ctus, ref_padded, pos, win, r, lam, cfg.pu_layouts, grid_fn,
-            grid=(gr, gc), metric=cfg.me_metric,
         )
         # Frame-level "mvs" report: the chosen layout's top-left tile MV.
         mv_qpel = mv_tiles[:, 0, 0, :]
@@ -340,28 +229,6 @@ def encode_inter_frame(cur: jnp.ndarray, ref: jnp.ndarray, cfg: EncodeConfig = E
             "nnz": nnz,
             "psnr_db": psnr(cur, recon),
         }
-    if cfg.inter_impl == "mega" and not cfg.tu_sizes:
-        # One kernel for the whole inner loop: search + refine + residual,
-        # reference plane read exactly once per CTU.
-        from ..kernels.mega_pallas import encode_ctu_mega
-
-        p = r + 8
-        plane = ctu_mod.pad_frame(ref, p, p, p, p)
-        scale, shift, offset = cfg.quant_params(False)
-        dscale, dshift = cfg.dequant_params()
-        rec_ctus, mv_int, frac, best_sad, nnz_tu = encode_ctu_mega(
-            src_ctus, plane, pos, r, scale, shift, offset, dscale, dshift,
-            group=cfg.fused_group,
-        )
-        mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
-        recon = ctu_mod.untile_frame(rec_ctus, h, w)
-        return {
-            "recon": recon,
-            "mvs": mv_qpel,
-            "sad": best_sad,
-            "nnz": jnp.sum(nnz_tu),
-            "psnr_db": psnr(cur, recon),
-        }
     if not cfg.tu_sizes:
         rec_ctus, mv_qpel, best_sad, nnz = _inter_core(
             src_ctus, ref, ref_padded, pos, cfg, (gr, gc)
@@ -374,40 +241,36 @@ def encode_inter_frame(cur: jnp.ndarray, ref: jnp.ndarray, cfg: EncodeConfig = E
             "nnz": nnz,
             "psnr_db": psnr(cur, recon),
         }
+    # TU-size selection composes with the staged refine.
+    from . import partition
+
     mv_int, best_sad = _integer_search(src_ctus, ref, ref_padded, pos, cfg, (gr, gc))
-    if cfg.tu_sizes:
-        # TU-size selection composes with the staged refine below.
-        from . import partition as _partition
-
-        start = pos + mv_int + r
-        winr = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
-        from ..kernels.interp_xla import refine_quarter_pel_mxu
-
-        pred, frac, _ = refine_quarter_pel_mxu(src_ctus, winr)
-        mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
-        rec_ctus, tu_choice, nnz = _partition.select_tu_recon(
-            src_ctus, pred, cfg, cfg.tu_sizes
-        )
-        recon = ctu_mod.untile_frame(rec_ctus, h, w)
-        return {
-            "recon": recon,
-            "mvs": mv_qpel,
-            "tu_choice": tu_choice,
-            "sad": best_sad,
-            "nnz": nnz,
-            "psnr_db": psnr(cur, recon),
-        }
-    raise AssertionError("unreachable")  # tu_sizes handled above
+    start = pos + mv_int + r
+    winr = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
+    pred, frac, _ = _refine_fn(cfg)(src_ctus, winr)
+    mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
+    rec_ctus, tu_choice, nnz = partition.select_tu_recon(
+        src_ctus, pred, cfg, cfg.tu_sizes
+    )
+    recon = ctu_mod.untile_frame(rec_ctus, h, w)
+    return {
+        "recon": recon,
+        "mvs": mv_qpel,
+        "tu_choice": tu_choice,
+        "sad": best_sad,
+        "nnz": nnz,
+        "psnr_db": psnr(cur, recon),
+    }
 
 
 def _inter_core(src_ctus, ref, ref_padded, pos, cfg: EncodeConfig, grid):
-    """The cfg-selected inter engine: integer search + quarter-pel refine +
-    residual pipeline at the configured tier (staged or fused kernels).
+    """The inter engine: integer search + quarter-pel refine + residual
+    pipeline, each stage at its cfg-selected implementation.
 
     Shared by encode_inter_frame, the multi-chip band step
     (parallel/sharding._band_frame_step), and the YUV frame encoders —
     every client calls through the best populated implementation, the
-    reference's table model (sad.h:69-87; VERDICT r3 #4).
+    reference's table model (sad.h:69-87).
 
     src_ctus (n, B, B); ref the unpadded plane (pyramid coarse level);
     ref_padded padded by (r + PAD_L/PAD_R); pos (n, 2); grid (rows, cols).
@@ -419,69 +282,18 @@ def _inter_core(src_ctus, ref, ref_padded, pos, cfg: EncodeConfig, grid):
         # config asked for (the reference's populate/get always dispatches
         # what the mask selects or the caller finds out, sad.h:69-87).
         # The YUV, spatial-sharding, and rate-control entry points all
-        # route here (VERDICT r4 missing #3 / ADVICE r4).
+        # route here.
         raise ValueError(
             "this entry point runs the fixed CTU/TU geometry; "
             "pu_decision/tu_sizes compose only with encode_inter_frame"
         )
     r = cfg.search_range
     mv_int, best_sad = _integer_search(src_ctus, ref, ref_padded, pos, cfg, grid)
-    if cfg.inter_impl in ("fused", "fused_batched", "fused_dma"):
-        # One Pallas kernel: qpel refine + transform/quant/reconstruct per
-        # CTU (group).  The windows are aligned (B+8, 128) slabs so the
-        # kernel's per-step DMAs are full tiles (extra pixels beyond B+7
-        # are inert: the FIR matrices are zero there).
-        start = pos + mv_int + r
-        # Extend the padded plane so the aligned slab read never clamps
-        # at the bottom/right edge (dynamic_slice clamping would shift the
-        # used (B+7, B+7) region, not just the inert margin).
-        extra_r = (cfg.ctu + 8) - (cfg.ctu + motion.TAPS - 1)
-        extra_c = 128 - (cfg.ctu + motion.TAPS - 1)
-        scale, shift, offset = cfg.quant_params(False)
-        dscale, dshift = cfg.dequant_params()
-        if cfg.inter_impl == "fused_dma":
-            from ..kernels.interp_pallas import inter_ctu_fused_dma
-
-            # The kernel self-pads the plane for its (8, 128)-aligned slab
-            # reads; every used (B+7, B+7) window is in-plane by the
-            # ref_padded construction above.
-            rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused_dma(
-                src_ctus, ref_padded, start, scale, shift, offset,
-                dscale, dshift, group=cfg.fused_group,
-            )
-        else:
-            ref_padded_f = ctu_mod.pad_frame(ref_padded, 0, extra_r, 0, extra_c)
-            win = motion.extract_windows(ref_padded_f, start, (cfg.ctu + 8, 128))
-            if cfg.inter_impl == "fused_batched":
-                from ..kernels.interp_pallas import inter_ctu_fused_batched
-
-                rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused_batched(
-                    src_ctus, win, scale, shift, offset, dscale, dshift,
-                    group=cfg.fused_group,
-                )
-            else:
-                from ..kernels.interp_pallas import inter_ctu_fused
-
-                rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused(
-                    src_ctus, win, scale, shift, offset, dscale, dshift
-                )
-        mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
-        nnz = jnp.sum(nnz_tu)
-    else:
-        if cfg.fused_refine or cfg.refine_impl == "mxu":
-            start = pos + mv_int + r
-            win = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
-            if cfg.fused_refine:
-                from ..kernels.interp_pallas import refine_quarter_pel_fused as _refine
-            else:
-                from ..kernels.interp_xla import refine_quarter_pel_mxu as _refine
-
-            pred, frac, _ = _refine(src_ctus, win)
-            mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
-        else:
-            pred, mv_qpel, _ = motion.refine_quarter_pel(src_ctus, ref_padded, pos, mv_int, r)
-
-        rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False)
+    start = pos + mv_int + r
+    win = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
+    pred, frac, _ = _refine_fn(cfg)(src_ctus, win)
+    mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
+    rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False)
     return rec_ctus, mv_qpel, best_sad, nnz
 
 
@@ -497,12 +309,12 @@ def encode_inter_frame_multiref(
     reference's 4-way multiref SAD, sad.h:94-112) and the (ref, mv) pair
     minimizing the integer score is selected jointly per CTU; one compile
     regardless of k.  k == 1 is bit-identical to encode_inter_frame.  The
-    fused inter_impl modes work on the k planes stacked into one flat
+    refine windows are gathered from the k planes stacked into one flat
     plane (offset rows select the reference).
     """
     if cfg.me_strategy == "pyramid":
         # The single-pass k-way search is exhaustive; silently ignoring the
-        # strategy would change MVs vs the configured intent (ADVICE r3).
+        # strategy would change MVs vs the configured intent.
         raise ValueError(
             "encode_inter_frame_multiref searches exhaustively; "
             "me_strategy='pyramid' is not honored here (use 'full')"
@@ -527,7 +339,6 @@ def encode_inter_frame_multiref(
     )(refs)                                              # (k, Hp, Wp)
     mv_int, ref_idx, _ = motion.full_search_multi(
         src_ctus, planes, pos, r, grid_fn=grid_fn, grid=(gr, gc),
-        metric=cfg.me_metric,
     )
 
     hp, wp = planes.shape[1], planes.shape[2]
@@ -535,57 +346,10 @@ def encode_inter_frame_multiref(
     start = pos + mv_int + r
     row0 = ref_idx * hp + start[:, 0]
 
-    if cfg.inter_impl in ("fused", "fused_batched", "fused_dma"):
-        scale, shift, offset = cfg.quant_params(False)
-        dscale, dshift = cfg.dequant_params()
-        offs = jnp.stack([row0, start[:, 1]], axis=-1)
-        if cfg.inter_impl == "fused_dma":
-            from ..kernels.interp_pallas import inter_ctu_fused_dma
-
-            rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused_dma(
-                src_ctus, flat, offs, scale, shift, offset, dscale, dshift,
-                group=cfg.fused_group,
-            )
-        else:
-            # Gather aligned (B+8, 128) slabs from the flat plane; pad so
-            # the gather never clamps (cross-plane rows are inert).
-            flat_g = jnp.pad(flat, ((0, 9), (0, 121)))
-            win = motion.extract_windows(
-                flat_g, offs, (cfg.ctu + 8, 128)
-            )
-            if cfg.inter_impl == "fused_batched":
-                from ..kernels.interp_pallas import inter_ctu_fused_batched
-
-                rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused_batched(
-                    src_ctus, win, scale, shift, offset, dscale, dshift,
-                    group=cfg.fused_group,
-                )
-            else:
-                from ..kernels.interp_pallas import inter_ctu_fused
-
-                rec_ctus, frac, _, nnz_tu, _ = inter_ctu_fused(
-                    src_ctus, win, scale, shift, offset, dscale, dshift
-                )
-        mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
-        recon = ctu_mod.untile_frame(rec_ctus, h, w)
-        return {
-            "recon": recon,
-            "mvs": mv_qpel,
-            "ref_idx": ref_idx,
-            "nnz": jnp.sum(nnz_tu),
-            "psnr_db": psnr(cur, recon),
-        }
-
     win = motion.extract_windows(
         flat, jnp.stack([row0, start[:, 1]], axis=-1), cfg.ctu + motion.TAPS - 1
     )
-    if cfg.fused_refine:
-        from ..kernels.interp_pallas import refine_quarter_pel_fused as _refine
-    elif cfg.refine_impl == "mxu":
-        from ..kernels.interp_xla import refine_quarter_pel_mxu as _refine
-    else:
-        from ..ops.pred_inter import refine_qpel as _refine
-    pred, frac, _ = _refine(src_ctus, win)
+    pred, frac, _ = _refine_fn(cfg)(src_ctus, win)
     mv_qpel = mv_int * 4 + jnp.stack([frac // 4, frac % 4], axis=-1)
 
     rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False)
@@ -617,8 +381,7 @@ def _intra_neighbours(frame: jnp.ndarray, n: int):
     def runs(mat, blocks, count):
         """(rows, 1 + count*n + n) -> (rows, count, 2n): the 2n-run starting
         one past each n-aligned position — two shifted reshapes, no
-        per-block gather (vmapped dynamic_slice costs ~3 ms/frame at
-        1080p)."""
+        per-block gather."""
         x1 = mat[:, 1 : 1 + count * n].reshape(blocks, count, n)
         x2 = mat[:, 1 + n : 1 + count * n + n].reshape(blocks, count, n)
         return jnp.concatenate([x1, x2], axis=-1)
@@ -670,9 +433,9 @@ def _intra_mode_sweep(blocks, refs_plain, refs_filt, n: int):
 
     Returns (preds (m, 35, n, n) uint8, costs (m, 35) int32).  At n == 32
     (no edge filtering) the sweep is ONE constant int8 matmul
-    (kernels/intra_matrix — the gather-heavy per-mode loop made closed-loop
-    I frames cost ~107 ms at 1080p); other sizes run the per-mode REF
-    path.  SATD over 8x8 sub-blocks is the standard mode-decision cost
+    (kernels/intra_matrix, in place of the gather-heavy per-mode loop);
+    other sizes run the per-mode REF path.  SATD over 8x8 sub-blocks is
+    the standard mode-decision cost
     (what the reference's hadamard_satd kernels exist for,
     hadamard.c:75-111)."""
     from ..ops.pred_intra import filter_flag

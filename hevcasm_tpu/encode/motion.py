@@ -33,7 +33,8 @@ def grid_metric_fn(metric: str):
     """Best available grid-scoring implementation for a metric name.
 
     "sad": reference-faithful |a-b| grid; "ssd": squared-error grid, whose
-    optimized tier rides the MXU (kernels/xla_opt.ssd_grid, exact integers).
+    optimized tier is correlation matmuls (kernels/xla_opt.ssd_grid, exact
+    integers).
     """
     from .. import registry  # late import: kernels register on package load
 
@@ -114,7 +115,7 @@ def full_search(
     ref_padded: reference plane padded by (R + PAD_L) top/left and
                 (R + PAD_R) bottom/right (see pad amounts in loop.py).
     positions:  (n, 2) CTU pixel positions in unpadded coords.
-    grid_fn:    sad_grid implementation (REF or a Pallas tier).
+    grid_fn:    grid-scoring implementation (sad_grid, ssd_grid, any tier).
     grid:       (rows, cols) of the CTU grid; when given and the window span
                 is tile-aligned, windows come from the reshape-based
                 extractor instead of per-CTU gathers.
@@ -139,41 +140,6 @@ def full_search(
     return mv, best_sad
 
 
-def full_search_slab(
-    src_ctus: jnp.ndarray,
-    ref_padded: jnp.ndarray,
-    search_range: int,
-    grid: tuple[int, int],
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Integer full search with the windows read straight from the plane.
-
-    Same contract and results as full_search (me_metric='ssd', b = 64,
-    R = 32, even CTU-grid width), but the Pallas kernel walks the padded
-    reference in 64-row slabs instead of consuming an XLA-materialized
-    (n, 128, 128) window stack — the window gather/stitch/centering
-    layout traffic (~0.15 ms/frame at 1080p) disappears
-    (kernels/search_pallas.ssd_grid_plane).
-    """
-    from ..kernels.search_pallas import ssd_grid_plane
-
-    b = src_ctus.shape[-1]
-    r = search_range
-    num = 2 * r + 1
-    gr, gc = grid
-    # ref_padded carries (R + PAD_L) top/left; the slab kernel wants the
-    # window of CTU (r, c) at plane[64r, 64c], i.e. exactly R of padding.
-    plane = jax.lax.slice(
-        ref_padded, (PAD_L, PAD_L),
-        (PAD_L + gr * b + 2 * r, PAD_L + gc * b + 2 * r),
-    )
-    sads = ssd_grid_plane(src_ctus, plane, grid, num)
-    flat = sads.reshape(sads.shape[0], -1)
-    best = jnp.argmin(flat, axis=-1).astype(jnp.int32)
-    best_sad = jnp.take_along_axis(flat, best[:, None], axis=-1)[:, 0]
-    mv = jnp.stack([best // num - r, best % num - r], axis=-1)
-    return mv, best_sad
-
-
 def full_search_multi(
     src_ctus: jnp.ndarray,
     planes: jnp.ndarray,
@@ -182,12 +148,11 @@ def full_search_multi(
     grid_fn=sad_grid,
     grid: tuple[int, int] | None = None,
     joint: bool = True,
-    metric: str | None = None,
 ):
     """Integer full search against k stacked reference planes in ONE
     batched grid call — the k-way generalisation of the reference's 4-way
     multiref SAD (sad.h:94-112), searched single-pass instead of a Python
-    loop over references (VERDICT r2 #6).
+    loop over references.
 
     planes: (k, Hp, Wp) each padded like full_search's ref_padded.  With
     ``joint`` (P-frame reference selection), returns (mv (n, 2),
@@ -200,32 +165,15 @@ def full_search_multi(
     r = search_range
     num = 2 * r + 1
     size = b + 2 * r
-    if (
-        metric == "ssd" and b == 64 and r == 32 and grid is not None
-        and grid[1] % 2 == 0 and jax.default_backend() == "tpu"
-    ):
-        # k-aware slab kernel: the rolled-source stack is built once per
-        # CTU and scored against all k planes (sad_a.asm:56-194's
-        # one-src-vs-4-refs amortization); bit-exact with the tiled path.
-        from ..kernels.search_pallas import ssd_grid_plane_multi
-
-        gr, gc = grid
-        sub = jax.vmap(lambda p: jax.lax.slice(
-            p, (PAD_L, PAD_L),
-            (PAD_L + gr * b + 2 * r, PAD_L + gc * b + 2 * r),
-        ))(planes)
-        scores = ssd_grid_plane_multi(src_ctus, sub, grid, num)
-        scores = jnp.swapaxes(scores, 0, 1).reshape(k, n, num * num)
-    else:
-        wins = []
-        for i in range(k):
-            if grid is not None and size % b == 0:
-                wins.append(extract_aligned_windows(planes[i], (PAD_L, PAD_L), grid, b, size))
-            else:
-                wins.append(extract_windows(planes[i], positions + PAD_L, size))
-        win = jnp.concatenate(wins, axis=0)              # (k*n, S, S)
-        srcs = jnp.tile(src_ctus, (k, 1, 1))             # (k*n, b, b)
-        scores = grid_fn(srcs, win, num, num).reshape(k, n, num * num)
+    wins = []
+    for i in range(k):
+        if grid is not None and size % b == 0:
+            wins.append(extract_aligned_windows(planes[i], (PAD_L, PAD_L), grid, b, size))
+        else:
+            wins.append(extract_windows(planes[i], positions + PAD_L, size))
+    win = jnp.concatenate(wins, axis=0)              # (k*n, S, S)
+    srcs = jnp.tile(src_ctus, (k, 1, 1))             # (k*n, b, b)
+    scores = grid_fn(srcs, win, num, num).reshape(k, n, num * num)
     if joint:
         flat = jnp.moveaxis(scores, 0, 1).reshape(n, k * num * num)
         best = jnp.argmin(flat, axis=-1).astype(jnp.int32)

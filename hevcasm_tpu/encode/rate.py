@@ -1,8 +1,8 @@
 """Rate control: per-frame qp adaptation toward a bit budget.
 
 The reference has no rate control (no config system beyond the ISA mask,
-SURVEY.md section 5); a production encoder needs one.  TPU-first design
-constraint: qp must be a *traced* value, otherwise every qp change would
+SURVEY.md section 5); a production encoder needs one.  Compiled-program
+design constraint: qp must be a *traced* value, otherwise every qp change would
 recompile the frame program.  quantize/quantize_inverse already accept traced
 scale/shift/offset arrays, so the quantizer parameter derivation below is
 pure jnp (table gathers + shifts) and one compiled program serves all qps.
@@ -55,9 +55,8 @@ def bits_estimate(levels: jnp.ndarray) -> jnp.ndarray:
     """Exp-Golomb-style bit-cost proxy of quantized levels (scalar int32).
 
     floor(log2 a) comes from the f32 exponent field (|levels| <= 32767
-    < 2^24 converts exactly) — the same integer-exact formulation the
-    fused kernels use in-kernel (kernels/residual_pallas._bits_egk), so
-    the staged and fused rate-control paths count identical bits."""
+    < 2^24 converts exactly) — the same integer-exact formulation as the
+    per-CTU bits of kernels/xla_opt.residual_pipeline_frame."""
     a = jnp.abs(levels.astype(jnp.int32))
     fl = (jax.lax.bitcast_convert_type(
         jnp.maximum(a, 1).astype(jnp.float32), jnp.int32) >> 23) - 127
@@ -88,8 +87,8 @@ def _residual_pipeline_traced(src_blocks, pred_blocks, qp, cfg: EncodeConfig,
     With ``checked`` the quantizer emits checkify range checks on its
     traced parameters — an out-of-range qp derivation (e.g. shift past the
     reference's asserted 16..27 window, quantize.c:162-165) raises from
-    encode_gop_rate_controlled instead of passing silently (VERDICT r3
-    weak #3).  Callers passing checked=True must run under a checkify
+    encode_gop_rate_controlled instead of passing silently.  Callers
+    passing checked=True must run under a checkify
     transform."""
     qparams = quant_params_traced(qp, cfg.tu_log2, intra)
     return _residual_pipeline_traced_params(src_blocks, pred_blocks, qparams,
@@ -100,18 +99,15 @@ def _residual_pipeline_traced(src_blocks, pred_blocks, qp, cfg: EncodeConfig,
 def encode_inter_frame_traced_qp(cur, ref, qp, cfg: EncodeConfig = EncodeConfig(),
                                  checked: bool = False):
     """encode_inter_frame with a traced qp; one compile serves all qps.
-
-    Honors cfg.search_impl and cfg.inter_impl: with a fused inter_impl the
-    traced quantizer parameters ride to the Pallas kernels in SMEM and the
-    per-CTU Exp-Golomb bit costs come back from the kernel's own pooling
-    sandwich — the whole rate-controlled frame runs the fast tier, bit-
-    exact with the staged composition (tests/test_rate.py)."""
+    Search and refinement are the fixed-qp frame's stages; the residual
+    runs with the traced quantizer parameters and returns its Exp-Golomb
+    bit estimate."""
     if cfg.pu_decision or cfg.tu_sizes:
         # The traced-qp path runs the fixed 64/8x8 geometry; silently
         # dropping a requested RDO decision would encode something other
         # than the config asked for (the reference's populate/get always
         # dispatches what the mask selects or the caller finds out,
-        # sad.h:69-87; VERDICT r4 missing #3).
+        # sad.h:69-87).
         raise ValueError(
             "encode_inter_frame_traced_qp does not compose with "
             "pu_decision/tu_sizes (use encode_inter_frame at fixed qp)"
@@ -124,61 +120,12 @@ def encode_inter_frame_traced_qp(cur, ref, qp, cfg: EncodeConfig = EncodeConfig(
         ref, r + motion.PAD_L, r + motion.PAD_R, r + motion.PAD_L, r + motion.PAD_R
     )
     pos = motion.ctu_positions(gr, gc, cfg.ctu)
-    from .loop import _integer_search
+    from .loop import _integer_search, _refine_fn
 
     mv_int, _ = _integer_search(src_ctus, ref, ref_padded, pos, cfg, (gr, gc))
-    if cfg.inter_impl in ("fused", "fused_batched", "fused_dma"):
-        qscale, qshift, qoffset, dscale, dshift = quant_params_traced(
-            qp, cfg.tu_log2, False
-        )
-        if checked:
-            # The fused kernels consume the parameters raw (no ops.quantize
-            # call), so the reference's asserted ranges are checked here.
-            from ..ops.quantize import check_params_traced
-
-            check_params_traced(qscale, qshift, qoffset)
-        start = pos + mv_int + r
-        if cfg.inter_impl == "fused_dma":
-            from ..kernels.interp_pallas import inter_ctu_fused_dma
-
-            rec_ctus, _, _, _, bits_tu = inter_ctu_fused_dma(
-                src_ctus, ref_padded, start, qscale, qshift, qoffset,
-                dscale, dshift, group=cfg.fused_group,
-            )
-        else:
-            extra_r = (cfg.ctu + 8) - (cfg.ctu + motion.TAPS - 1)
-            extra_c = 128 - (cfg.ctu + motion.TAPS - 1)
-            ref_padded_f = ctu_mod.pad_frame(ref_padded, 0, extra_r, 0, extra_c)
-            win = motion.extract_windows(ref_padded_f, start, (cfg.ctu + 8, 128))
-            if cfg.inter_impl == "fused_batched":
-                from ..kernels.interp_pallas import inter_ctu_fused_batched
-
-                rec_ctus, _, _, _, bits_tu = inter_ctu_fused_batched(
-                    src_ctus, win, qscale, qshift, qoffset, dscale, dshift,
-                    group=cfg.fused_group,
-                )
-            else:
-                from ..kernels.interp_pallas import inter_ctu_fused
-
-                rec_ctus, _, _, _, bits_tu = inter_ctu_fused(
-                    src_ctus, win, qscale, qshift, qoffset, dscale, dshift
-                )
-        recon = ctu_mod.untile_frame(rec_ctus, h, w)
-        return {"recon": recon, "bits": jnp.sum(bits_tu),
-                "psnr_db": psnr(cur, recon), "qp": qp}
-    if cfg.fused_refine or cfg.refine_impl == "mxu":
-        # The staged traced branch honors the cfg-selected refine tier
-        # exactly as loop._inter_core does (VERDICT r4 weak #5: this used
-        # to hard-code the slowest jnp refine regardless of refine_impl).
-        start = pos + mv_int + r
-        win = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
-        if cfg.fused_refine:
-            from ..kernels.interp_pallas import refine_quarter_pel_fused as _refine
-        else:
-            from ..kernels.interp_xla import refine_quarter_pel_mxu as _refine
-        pred, _, _ = _refine(src_ctus, win)
-    else:
-        pred, _, _ = motion.refine_quarter_pel(src_ctus, ref_padded, pos, mv_int, r)
+    start = pos + mv_int + r
+    win = motion.extract_windows(ref_padded, start, cfg.ctu + motion.TAPS - 1)
+    pred, _, _ = _refine_fn(cfg)(src_ctus, win)
     rec_ctus, bits = _residual_pipeline_traced(
         src_ctus, pred, qp, cfg, intra=False, checked=checked
     )
@@ -190,9 +137,8 @@ def encode_inter_frame_traced_qp(cur, ref, qp, cfg: EncodeConfig = EncodeConfig(
 def encode_b_frame_traced_qp(cur, ref0, ref1, qp, cfg: EncodeConfig = EncodeConfig(),
                              checked: bool = False):
     """B frame (luma) with a traced qp: per-reference search + refinement +
-    the fused bi combine at the cfg-selected tier (video._b_frame_luma),
-    quantizer parameters in SMEM for the fused kernel — the B-frame
-    counterpart of encode_inter_frame_traced_qp."""
+    the bi combine (video._b_frame_luma) with the traced quantizer
+    parameters — the B-frame counterpart of encode_inter_frame_traced_qp."""
     if cfg.pu_decision or cfg.tu_sizes:
         raise ValueError(
             "encode_b_frame_traced_qp does not compose with "
@@ -297,11 +243,7 @@ def encode_gop_rate_controlled(
     bi-predicted from the two surrounding recons, one qp per B/P pair
     updated on the pair's bits.
 
-    Runs the inter path selected by cfg — with a fused inter_impl the
-    traced-qp quantizer parameters ride to the Pallas kernels in SMEM and
-    the controller consumes the kernels' own per-TU bit counts, so the
-    rate-controlled GOP runs at the fast tier (VERDICT r3 #3).  The
-    quantizer's reference-asserted parameter ranges are enforced via
+    The quantizer's reference-asserted parameter ranges are enforced via
     checkify: an out-of-range traced qp raises here (tests/test_rate.py).
 
     Returns per-frame recon, bits, qp, psnr arrays.

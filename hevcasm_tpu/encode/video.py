@@ -60,13 +60,10 @@ def chroma_qp(qp: int) -> int:
 
 
 def _chroma_cfg(cfg: EncodeConfig) -> EncodeConfig:
-    # Chroma only uses the residual pipeline (MC comes from the luma MVs),
-    # so the luma-side inter_impl is reset — the fused inter kernels
-    # hardwire the 64/8x8 luma geometry and their config guard would
-    # otherwise reject the derived tu=4 config.
+    # Chroma only uses the residual pipeline (MC comes from the luma MVs).
     return dataclasses.replace(
         cfg, qp=chroma_qp(cfg.qp), tu=4, ctu=cfg.ctu // 2,
-        search_range=cfg.search_range // 2, inter_impl="stages",
+        search_range=cfg.search_range // 2,
     )
 
 
@@ -110,11 +107,8 @@ def encode_inter_frame_yuv(cur: YuvFrame, ref: YuvFrame, cfg: EncodeConfig = Enc
     """One P frame over 4:2:0 planes: luma ME + MC, chroma MC from luma MVs,
     full residual pipelines on all three planes.
 
-    The luma plane runs the cfg-selected tier (loop._inter_core): with
-    inter_impl='fused_dma' the whole luma path — search, refine, residual —
-    is the same fused-kernel composition as the luma-only headline
-    (VERDICT r3 #4: the 4-tap/fused-bi tier composed into the consumer
-    pipeline rather than a REF-only island)."""
+    The luma plane runs the same inter engine as the luma-only encoder
+    (loop._inter_core)."""
     h, w = cur.y.shape
     gr, gc = ctu_mod.grid_shape(h, w, cfg.ctu)
     src_ctus = ctu_mod.tile_frame(cur.y, cfg.ctu)
@@ -145,72 +139,34 @@ def encode_inter_frame_yuv(cur: YuvFrame, ref: YuvFrame, cfg: EncodeConfig = Enc
 def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
                   qparams=None):
     """Shared B-frame luma core: per-reference integer search + quarter-pel
-    refinement + bi combine + residual at the cfg-selected tier.
+    refinement + bi combine + residual.
 
     qparams None uses cfg.quant_params (nnz returned); a traced
     (qscale, qshift, qoffset, dscale, dshift) tuple selects the traced-qp
     residual stage (bits returned) — the rate controller's path.
     Returns (rec_y_ctus, [mv0_qpel, mv1_qpel], nnz, bits)."""
+    from .loop import _refine_fn
+
     gr, gc = grid
     r = cfg.search_range
     grid_fn = motion.grid_metric_fn(cfg.me_metric)
-    from .loop import _search_impl_resolved
 
-    # Both references searched per-reference (a B frame needs both MVs):
-    # the slab kernel per plane when the geometry fits, else ONE batched
-    # grid call over the stacked planes.
+    # Both references searched per-reference (a B frame needs both MVs) in
+    # ONE batched grid call over the stacked planes.
     planes = jax.vmap(
         lambda p: ctu_mod.pad_frame(
             p, r + motion.PAD_L, r + motion.PAD_R, r + motion.PAD_L, r + motion.PAD_R
         )
     )(jnp.stack([ref0_y, ref1_y]))
-    if _search_impl_resolved(cfg, (gr, gc)) == "slab":
-        mv_ints = [
-            motion.full_search_slab(src_ctus, planes[i], r, (gr, gc))[0]
-            for i in range(2)
-        ]
-    else:
-        mv_ints, _ = motion.full_search_multi(
-            src_ctus, planes, pos, r, grid_fn=grid_fn, grid=(gr, gc),
-            joint=False, metric=cfg.me_metric,
-        )
-
-    if qparams is None:
-        scale, shift, offset = cfg.quant_params(False)
-        dscale, dshift = cfg.dequant_params()
-    else:
-        scale, shift, offset, dscale, dshift = qparams
-
-    if (cfg.inter_impl in ("fused", "fused_batched", "fused_dma")
-            and cfg.ctu == 64 and cfg.tu == 8):
-        # Fused bi tier: both refine windows DMA'd in-kernel, per-reference
-        # QPEL_SCORE refinement, int16 (acc >> 6) intermediates, the
-        # (r0 + r1 + 64) >> 7 combining mean, and the residual pipeline in
-        # one VMEM residency (kernels/interp_pallas.bi_ctu_fused_dma) —
-        # bit-exact with the staged composition below (tests/test_video.py).
-        from ..kernels.interp_pallas import bi_ctu_fused_dma
-
-        hp, wp = planes.shape[1], planes.shape[2]
-        flat = planes.reshape(2 * hp, wp)
-        start0 = pos + mv_ints[0] + r
-        start1 = pos + mv_ints[1] + r + jnp.asarray([hp, 0], jnp.int32)
-        rec_y_ctus, f0, f1, nnz_tu, bits_tu = bi_ctu_fused_dma(
-            src_ctus, flat, start0, start1, scale, shift, offset,
-            dscale, dshift, group=cfg.fused_group,
-        )
-        mvs = [
-            mv_ints[0] * 4 + jnp.stack([f0 // 4, f0 % 4], axis=-1),
-            mv_ints[1] * 4 + jnp.stack([f1 // 4, f1 % 4], axis=-1),
-        ]
-        return rec_y_ctus, mvs, jnp.sum(nnz_tu), jnp.sum(bits_tu)
-
-    from ..kernels.interp_xla import refine_quarter_pel_mxu
+    mv_ints, _ = motion.full_search_multi(
+        src_ctus, planes, pos, r, grid_fn=grid_fn, grid=(gr, gc), joint=False,
+    )
 
     mvs, preds16 = [], []
     for i in range(2):
         start = pos + mv_ints[i] + r
         win = motion.extract_windows(planes[i], start, cfg.ctu + motion.TAPS - 1)
-        _, frac_idx, _ = refine_quarter_pel_mxu(src_ctus, win)
+        _, frac_idx, _ = _refine_fn(cfg)(src_ctus, win)
         mv_qpel = mv_ints[i] * 4 + jnp.stack(
             [frac_idx // 4, frac_idx % 4], axis=-1)
         frac = mv_qpel & 3
@@ -234,8 +190,7 @@ def encode_b_frame_yuv(cur: YuvFrame, ref0: YuvFrame, ref1: YuvFrame, cfg: Encod
     """One B frame: independent integer full search against both references,
     quarter-pel refinement of each, then the fused bi-pred combining mean
     (r0 + r1 + 64) >> 7 — the hevcasm_pred_bi contract (pred_inter.c:490-530).
-    Chroma bi-predicts with the same MV pair.  Luma runs the cfg-selected
-    tier (_b_frame_luma: the fused bi kernel under inter_impl='fused*')."""
+    Chroma bi-predicts with the same MV pair (luma core: _b_frame_luma)."""
     h, w = cur.y.shape
     gr, gc = ctu_mod.grid_shape(h, w, cfg.ctu)
     src_ctus = ctu_mod.tile_frame(cur.y, cfg.ctu)
@@ -249,7 +204,7 @@ def encode_b_frame_yuv(cur: YuvFrame, ref0: YuvFrame, ref1: YuvFrame, cfg: Encod
         # Reference bi contract: each uni path keeps the int16 (acc >> 6)
         # intermediate and the combining mean is (r0 + r1 + 64) >> 7
         # (pred_inter.c:490-530) — the r3 encoder's pavgb-style rounding of
-        # the two 8-bit uni outputs deviated from it (VERDICT r3 weak #5).
+        # the two 8-bit uni outputs deviated from it.
         p0 = _chroma_mc(plane0, mv0, cfg, out16=True).astype(jnp.int32)
         p1 = _chroma_mc(plane1, mv1, cfg, out16=True).astype(jnp.int32)
         pred = jnp.clip((p0 + p1 + 64) >> 7, 0, 255).astype(jnp.uint8)
@@ -271,9 +226,9 @@ def _chroma_intra_plane(plane: jnp.ndarray, cfg: EncodeConfig) -> tuple:
     """Chroma intra: planar/DC/H/V mode decision per block (the HEVC
     chroma candidate set, 8.4.3) from in-plane neighbours, SATD decision,
     then the chroma TU pipeline.  Replaces the r4 flat-block-mean
-    stand-in, which cost ~1.9 dB chroma PSNR on smooth content (VERDICT
-    r4 weak #7).  Open-loop neighbours (original samples), consistent
-    with the luma open-loop intra path.  Returns (recon_plane, nnz)."""
+    stand-in, which cost ~1.9 dB chroma PSNR on smooth content.  Open-loop
+    neighbours (original samples), consistent with the luma open-loop
+    intra path.  Returns (recon_plane, nnz)."""
     from .loop import (_intra_neighbours, _prepare_intra_refs,
                        _residual_pipeline, _satd_cost)
     from ..ops.pred_intra import filter_flag, pred_intra
@@ -345,9 +300,7 @@ def encode_gop_closed_loop_yuv(frames: YuvFrame, cfg: EncodeConfig = EncodeConfi
     """Closed-loop 4:2:0 IPPP GOP as ONE compiled program: frame 0 intra
     (closed-loop wavefront luma + DC chroma), every P frame predicted from
     the previous frame's RECONSTRUCTION on all three planes (lax.scan) —
-    the conforming full-video chain (VERDICT r3 weak #7: the fast tier's
-    closed loop was luma-only).  Luma runs the cfg-selected tier
-    (loop._inter_core, e.g. inter_impl='fused_dma').
+    the conforming full-video chain.  Luma runs loop._inter_core.
 
     frames: YuvFrame with leading time axis.  Returns {"recon": YuvFrame
     stacks, "psnr_y": (T,)} — bit-exact vs per-frame encode_inter_frame_yuv
@@ -389,8 +342,7 @@ def encode_gop_closed_loop_yuv_b(frames: YuvFrame, cfg: EncodeConfig = EncodeCon
     I, P2, B1, P4, B3, ...: each P is predicted from the previous P/I
     RECONSTRUCTION and each B bi-predicts from the two surrounding
     reconstructions — the conforming referencing structure (encode order !=
-    display order), with the luma B path on the cfg-selected tier (the
-    fused bi kernel under inter_impl='fused*').  Returns display-order
+    display order).  Returns display-order
     recon stacks + per-frame luma psnr; bit-exact vs composing
     encode_inter_frame_yuv / encode_b_frame_yuv per frame in the same
     encode order (tests/test_video.py)."""
@@ -442,8 +394,7 @@ def encode_gop_closed_loop(frames_y: jnp.ndarray, cfg: EncodeConfig, num_frames:
     with the closed-loop wavefront intra encoder and each P frame is
     predicted from the previous frame's *reconstruction* (lax.scan) — the
     conforming-encoder chain with no encoder/decoder drift, I frame
-    included (VERDICT r2 #4: seeding with the source frame left the first
-    reference unconforming).
+    included.
 
     frames_y: (T, H, W) uint8 with T == num_frames.
     Returns {"recon": (T, H, W) recon stack (I frame first),

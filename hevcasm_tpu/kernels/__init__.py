@@ -1,22 +1,13 @@
-"""Optimized kernel tiers.
+"""Optimized kernel tier (Tier.JIT, the C_OPT analogue).
 
-* xla_opt — optimized XLA formulations (Tier.JIT, the C_OPT analogue):
-  exact integer transforms/SATD as bf16 MXU matmuls via hi/lo byte
-  splitting, and MXU-based correlation scoring for motion search.
-* *_pallas — hand-written Pallas TPU kernels (Tier.PALLAS, the asm
-  analogue).
+* xla_opt — exact integer transforms/SATD as bf16 matmuls via hi/lo byte
+  splitting, the frame-batched residual pipeline, and the correlation
+  formulation of the full-search SSD grid.
+* interp_xla — quarter-pel refinement as banded-matrix FIR matmuls.
+* intra_matrix — the 35-mode intra sweep as one constant int8 matmul.
 
-Importing this package registers all optimized tiers.
+Importing this package registers the optimized tier.
 """
 
 from . import xla_opt  # noqa: F401
 from . import interp_xla  # noqa: F401
-
-try:  # Pallas kernels need a TPU-capable backend; degrade gracefully.
-    from . import sad_pallas  # noqa: F401
-    from . import search_pallas  # noqa: F401
-    from . import interp_pallas  # noqa: F401
-    from . import residual_pallas  # noqa: F401
-    from . import mc_pallas  # noqa: F401
-except Exception:  # pragma: no cover
-    sad_pallas = None

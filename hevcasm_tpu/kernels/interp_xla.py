@@ -1,9 +1,9 @@
-"""MXU formulation of quarter-pel refinement: banded-matrix FIR matmuls.
+"""Matrix formulation of quarter-pel refinement: banded-matrix FIR matmuls.
 
 The 8-tap HEVC interpolation FIR along an axis is a matmul with a constant
 banded matrix B[x, o] = c[x - o] (pred_inter.c:57-63 coefficients), so the
 16-candidate fractional sweep of motion.refine_quarter_pel becomes 4 + 32
-frame-batched MXU matmuls instead of 20 VPU int32 FIR passes:
+frame-batched matmuls instead of 20 elementwise int32 FIR passes:
 
   H pass (per xfrac, 4x):   win (n, y, x) @ Bx (x, o)    -- uint8 inputs,
       products <= 64*255 and 8-tap sums < 2^18: exact in bf16 x bf16 -> f32.
@@ -12,8 +12,9 @@ frame-batched MXU matmuls instead of 20 VPU int32 FIR passes:
       kernels/xla_opt.py exactness argument.
 
 Selection (per-CTU argmin of SAD over the 16 fracs, first-minimum ties) and
-outputs are bit-exact with motion.refine_quarter_pel / the fused Pallas
-kernel (tests/test_interp_xla.py).
+outputs are bit-exact with motion.refine_quarter_pel (tests/test_interp_xla.py).
+On the GPU the bf16 x bf16 -> f32 contractions can run on the tensor cores;
+exactness needs only that every partial sum stays an integer below 2^24.
 """
 
 from __future__ import annotations

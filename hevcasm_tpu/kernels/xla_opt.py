@@ -1,6 +1,7 @@
 """Optimized XLA formulations (Tier.JIT, the C_OPT analogue): the same
 bit-exact integer semantics as the REF tier, re-expressed so the heavy
-arithmetic rides the MXU as bf16 matmuls with f32 accumulation.
+arithmetic runs as bf16 matmuls with f32 accumulation (tensor-core work on
+the GPU).
 
 Exactness arguments (why bf16/f32 matmuls give bit-exact integer results):
 
@@ -22,10 +23,15 @@ Exactness arguments (why bf16/f32 matmuls give bit-exact integer results):
   int32 diagonal reduction corr[dy] = sum_y G[dy+y, y] done with the
   pad-and-reshape diagonal-extraction trick (pure data movement).  The
   sliding window-energy term uses an int32 integral image.  The result is
-  bit-exact integer SSD, but produced at MXU rates instead of VPU |a-b|
-  rates — the TPU-first answer to the reference's psadbw-based search
-  (sad_a.asm:56-194): on x86 SAD is the cheap metric, on TPU the matmul-
-  friendly SSD is.
+  bit-exact integer SSD, produced by matrix products instead of |a-b|
+  reductions — the matrix-unit answer to the reference's psadbw-based
+  search (sad_a.asm:56-194): on x86 SAD is the cheap metric, with matrix
+  units the matmul-friendly SSD is.
+
+Every bf16 matmul here keeps its exactness argument on any backend: the
+operands are integers of at most 8 significant bits and every partial sum
+stays below 2^24, so the f32 accumulation is exact in whatever order the
+backend sums.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ def _inv_stage(x, t_bf16, shift):
 
 @functools.partial(jax.jit, static_argnames=("tr_type",))
 def forward_transform(res, tr_type: int = 0):
-    """MXU forward transform; bit-exact with ops.transform.forward_transform."""
+    """Matmul forward transform; bit-exact with ops.transform.forward_transform."""
     n = res.shape[-1]
     t = jnp.asarray(tr.DST4 if tr_type else tr.dct_matrix(n)).astype(jnp.bfloat16)
     s1, s2 = tr.forward_shifts(n.bit_length() - 1)
@@ -109,13 +115,13 @@ def inverse_transform_add(coeffs, pred, tr_type: int = 0, bit_depth: int = 8):
 
 @jax.jit
 def satd(a, b):
-    """SATD via two f32 MXU matmuls; bit-exact with ops.satd.satd."""
+    """SATD via two f32 matmuls; bit-exact with ops.satd.satd."""
     n = a.shape[-1]
     h = jnp.asarray(hadamard_matrix(n)).astype(jnp.float32)
     d = (a.astype(jnp.int32) - b.astype(jnp.int32)).astype(jnp.float32)
-    # HIGHEST precision keeps the f32 MXU passes exact for these integer
-    # magnitudes; the TPU default truncates matmul inputs to bf16, which
-    # breaks bit-exactness once intermediates exceed 2^8.
+    # HIGHEST precision keeps the f32 passes exact for these integer
+    # magnitudes; the default precision may round matmul inputs (TF32 on
+    # the GPU keeps 11 significant bits), which breaks bit-exactness.
     m = jnp.einsum("ky,...yx->...kx", h, d, preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
     t = jnp.einsum("...kx,xj->...kj", m, h, preferred_element_type=jnp.float32,
@@ -154,7 +160,8 @@ def _diag_colsum(g: jnp.ndarray, num_dy: int) -> jnp.ndarray:
 
 @functools.partial(jax.jit, static_argnames=("num_dy", "num_dx"))
 def ssd_grid(src: jnp.ndarray, window: jnp.ndarray, num_dy: int, num_dx: int) -> jnp.ndarray:
-    """Exact integer SSD over a full candidate grid, MXU formulation.
+    """Exact integer SSD over a full candidate grid, correlation-matmul
+    formulation.
 
     src:    (n, h, w) uint8;  window: (n, >=h+num_dy-1, >=w+num_dx-1) uint8.
     Returns (n, num_dy, num_dx) int32 == ops.ssd.ssd_grid (bit-exact).
@@ -223,14 +230,13 @@ def residual_pipeline_frame(
     tu: int = 8,
     tr_type: int = 0,
 ):
-    """Whole-frame fused residual pipeline as frame-batched MXU matmuls.
+    """Whole-frame fused residual pipeline as frame-batched matmuls.
 
     src/pred: (n, B, B) uint8 CTU stacks.  Applies per-TU transform -> quant
     -> dequant -> inverse transform -> add -> clip with the block-diagonal
     identity kron(I_{B/tu}, T_tu): every pass over all n CTUs is ONE
-    (n*B, B) @ (B, B) matmul instead of n*(B/tu)^2 tiny tu x tu products,
-    which is what keeps the MXU fed (the per-CTU Pallas grid and the per-TU
-    einsum are both latency-bound at production frame sizes).
+    (n*B, B) @ (B, B) matmul instead of n*(B/tu)^2 tiny tu x tu products
+    (the per-TU einsum is latency-bound at production frame sizes).
 
     Bit-exact with ops.transform/ops.quantize composed per TU
     (residual_decode.c:592-852 forward, :69-368 inverse+add,

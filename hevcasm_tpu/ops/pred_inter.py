@@ -5,7 +5,7 @@ each block to one of four code paths (copy / H / V / HV, pred_inter.c:231-291)
 through a table keyed on [taps][w][xFrac!=0][yFrac!=0] (pred_inter.h:58-67),
 because x86 SIMD wants width- and case-specialised code.
 
-TPU-first design: a single, always-separable two-pass path.  When a
+Batched design: a single, always-separable two-pass path.  When a
 fractional offset is zero the corresponding filter row is the unit kernel
 (64 at the centre tap, pred_inter.c:57-79), and the arithmetic below then
 reduces *bit-exactly* to the reference's copy/H-only/V-only paths:
@@ -191,8 +191,8 @@ def refine_qpel(src_ctus: jnp.ndarray, windows: jnp.ndarray):
 
     src_ctus (n, b, b) uint8; windows (n, b+7, b+7) uint8 anchored at the
     integer MV.  Returns (pred (n, b, b) uint8, frac (n,) int32 = yf*4+xf,
-    cost (n,) int32).  This is the REF tier of the fused-refinement op
-    family (JIT: kernels/interp_xla.py; PALLAS: kernels/interp_pallas.py) —
+    cost (n,) int32).  This is the REF tier of the refinement op family
+    (JIT: kernels/interp_xla.py) —
     the encoder-side composition the reference's pred_uni tables exist to
     serve (pred_inter.h:64-67).
     """

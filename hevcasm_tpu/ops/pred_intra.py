@@ -6,7 +6,7 @@ are never hooked up (pred_intra.c:116-139).  Here the full HEVC Main-profile
 mode set is implemented: DC (bit-exact with the reference), planar, and the
 33 angular modes per ITU-T H.265 section 8.4.4.2 — batched, so an encoder can
 evaluate every mode for a stack of blocks in one call and pick the best by
-SATD, which is the TPU-native formulation of intra mode decision.
+SATD, which is the batched formulation of intra mode decision.
 
 Neighbour convention (functional, instead of the reference's packed pointer
 layout at pred_intra.c:57-63):
@@ -80,9 +80,7 @@ def substitute_references(left, above, corner, left_avail, above_avail,
 
     # Forward fill as ONE gather-free associative scan over (value, avail)
     # pairs — the combinator keeps the later operand's value when it is
-    # available.  (The r4 formulation scanned fill INDICES and gathered
-    # them back with take_along_axis; TPU gathers lower to serialized
-    # loops and cost ~1.8 ms per (2040, 130) call at 1080p.)
+    # available — no index scan and take_along_axis gather back.
     def keep_last(a, b):
         return (jnp.where(b[1], b[0], a[0]), a[1] | b[1])
 

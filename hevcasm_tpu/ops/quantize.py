@@ -22,7 +22,7 @@ def _require(name, val, lo, hi, traced_check: bool):
     """Enforce a reference-asserted parameter range (quantize.c:162-165).
 
     Concrete values (python/numpy ints/arrays AND committed jax Arrays —
-    every static-qp call path, ADVICE r3) fail immediately with
+    every static-qp call path) fail immediately with
     ValueError.  Traced values (the rate-control path, encode/rate.py)
     cannot be inspected at trace time; when ``traced_check`` a
     checkify.check is emitted — callers must then be functionalized (use

@@ -5,10 +5,9 @@ section 3.3: residual_decode.c:592-852 forward, quantize.c:160-186 quant,
 quantize.c:53-62 dequant, residual_decode.c:69-368 inverse+add).
 
 This module is the REF tier: a per-TU composition of the individually
-bit-exact ops.  Optimized tiers: kernels/xla_opt.residual_pipeline_frame
-(whole-frame block-diagonal MXU matmuls, Tier.JIT) and
-kernels/residual_pallas.residual_pipeline_ctu (fused per-CTU Pallas kernel,
-Tier.PALLAS).  All tiers return the same (recon, nnz, cbf) contract:
+bit-exact ops.  Optimized tier: kernels/xla_opt.residual_pipeline_frame
+(whole-frame block-diagonal matmuls, Tier.JIT).  Both tiers return the
+same (recon, nnz, cbf) contract:
 
   recon (n, B, B) uint8; nnz () int32 total coded coefficients;
   cbf (n*(B/tu)^2,) bool per-TU coded-block flags in raster TU order.

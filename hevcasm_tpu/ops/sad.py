@@ -2,7 +2,7 @@
 
 The reference exposes a single-block SAD (sad.c:47-60) and a 4-way multi-
 reference SAD for the motion-search inner loop (sad.c:101-121), each behind a
-rect-keyed function-pointer table.  On TPU the natural formulation is fully
+rect-keyed function-pointer table.  Under jit the natural formulation is fully
 batched: one call computes SAD for a whole stack of blocks (a CTU-tiled frame)
 and an arbitrary number of candidate references, generalising the asm's
 hard-coded ways=4 (sad.h:106) to an N-candidate axis, and the full candidate

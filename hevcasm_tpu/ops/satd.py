@@ -4,11 +4,11 @@ Reference: /root/reference/src/lib/hadamard.c.  The C code runs a recursive
 butterfly (hadamard.c:45-72) over the difference block, then sums absolute
 transformed values with rounding (sad + n/4) / (n/2) (hadamard.c:97-110).
 
-TPU-first formulation: the 2-D Hadamard transform is H @ D @ H^T with the
+Matrix formulation: the 2-D Hadamard transform is H @ D @ H^T with the
 Sylvester Hadamard matrix H (entries +-1).  The recursive butterfly computes
 the same transform up to a row permutation and the sum of absolute values is
 permutation-invariant, so the matmul form is bit-exact.  Batched over blocks,
-the two matmuls ride the MXU.
+the two matmuls run as batched matrix products.
 """
 
 from __future__ import annotations

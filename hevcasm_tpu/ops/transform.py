@@ -2,8 +2,8 @@
 
 Bit-exact re-derivation of the reference's partial-butterfly C implementations
 (/root/reference/src/lib/residual_decode.c:69-347 inverse, :592-852 forward),
-reformulated TPU-first: each butterfly pass is an N x N constant integer
-matrix product over a *batch* of blocks, which XLA maps onto the MXU/VPU,
+reformulated as batched matrix products: each butterfly pass is an N x N
+constant integer matrix product over a *batch* of blocks,
 instead of a scalar butterfly over one block.
 
 Semantics captured from the reference:

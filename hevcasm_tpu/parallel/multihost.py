@@ -1,12 +1,12 @@
-"""Multi-host runtime: process bring-up for pod-slice execution
+"""Multi-process runtime: process bring-up and a global mesh
 (SURVEY.md section 2.3, BASELINE config 5).
 
-GSPMD means the per-host program is identical; the only multi-host-specific
+GSPMD means the per-process program is identical; the only multi-process
 code is initialization and building a global mesh.  A 4K 32-frame GOP then
-runs through encode_gop_data_parallel / encode_inter_frame_spatial unchanged:
-frame-axis collectives ride DCN across hosts, row-axis halo exchange rides
-ICI within a slice (lay the 'rows' axis along the slice's minor mesh
-dimension, which make_global_mesh does by putting 'rows' innermost).
+runs through encode_gop_data_parallel / encode_inter_frame_spatial
+unchanged: row-axis halo exchange stays between the cards of one host
+(make_global_mesh puts 'rows' innermost), frame-axis traffic may cross
+hosts.
 """
 
 from __future__ import annotations
@@ -21,11 +21,12 @@ __all__ = ["initialize", "make_global_mesh"]
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up jax.distributed for a multi-host slice.
+    """Bring up jax.distributed for a multi-process run.
 
-    With TPU metadata available (GCE/Borg), bare ``initialize()`` suffices;
-    the explicit arguments cover manual bring-up (e.g. on-prem pods).
-    Idempotent: safe to call when already initialized or single-host.
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id; a cluster environment JAX recognises may supply
+    them instead.  Idempotent: safe to call when already initialized or
+    single-process.
     """
     try:
         jax.distributed.initialize(
@@ -41,9 +42,9 @@ def initialize(coordinator_address: str | None = None,
 def make_global_mesh(frames: int, rows: int) -> Mesh:
     """A (frames, rows) mesh over ALL devices in the job (across hosts).
 
-    'rows' is the innermost axis so halo ppermutes map to neighbouring
-    chips (ICI) rather than cross-host hops (DCN); 'frames' spans hosts,
-    where only whole reconstructed frames ever cross.
+    'rows' is the innermost axis so halo ppermutes stay between the cards
+    of one host rather than crossing hosts; 'frames' spans hosts, where
+    only whole reconstructed frames ever cross.
     """
     devs = np.asarray(jax.devices())
     assert devs.size == frames * rows, (

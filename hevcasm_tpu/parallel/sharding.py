@@ -102,13 +102,10 @@ def _exchange_halo(band: jnp.ndarray, top: int, bottom: int, axis: str) -> jnp.n
 def _band_frame_step(cur_band, ref_band, cfg: EncodeConfig, band_h: int,
                      w: int, h: int):
     """One inter-frame step on this device's CTU-row band, inside a
-    shard_map over axis 'rows': halo exchange, then the SAME cfg-selected
-    inter engine as single-chip (loop._inter_core — fused Pallas kernels
-    included; each band owns its haloed plane, so per-band fused_dma slab
-    reads stay band-local).  The r3 version hard-coded the REF refine +
-    staged residual regardless of cfg (VERDICT r3 #3: clients must call
-    through the populated best table, sad.h:69-87).  Returns (recon_band,
-    best_sad, nnz, psnr) with nnz/psnr already psum-reduced over 'rows'."""
+    shard_map over axis 'rows': halo exchange, then the SAME inter engine
+    as one device (loop._inter_core; each band owns its haloed plane).
+    Returns (recon_band, best_sad, nnz, psnr) with nnz/psnr already
+    psum-reduced over 'rows'."""
     if cfg.me_strategy == "pyramid":
         # The coarse pyramid level would decimate the halo-extended band
         # with band-local positions — silently wrong across shard
@@ -188,7 +185,7 @@ def encode_gop_closed_loop_spatial(
     Frame 0 is encoded with the closed-loop wavefront intra encoder (its
     wave schedule is sequential, so it runs replicated outside the
     shard_map; one frame of T) and seeds the chain — the same conforming
-    I+P chain as encode/video.encode_gop_closed_loop (VERDICT r2 #4).  The
+    I+P chain as encode/video.encode_gop_closed_loop.  The
     lax.scan over P frames runs INSIDE one shard_map: per frame, each
     device encodes its band after a ppermute halo exchange of the previous
     reconstruction; only the (halo_t + halo_b) boundary rows ever cross

@@ -1,29 +1,40 @@
 """Persistent XLA compilation cache.
 
-The RDO kernels are compile-heavy (the decide-in-kernel PU sweep compiles
-~70 s; the r4 bench_rdo run spent >15 min in Mosaic) while their compiled
-artifacts are stable across runs.  Enabling JAX's persistent cache keys
-compiled executables on (HLO, compiler version, topology) and makes every
-run after the first load them from disk — the TPU-framework shape of the
-reference's ahead-of-time build (its kernels compile once at `make`).
+The encode programs are compile-heavy (the closed-loop GOP and the PU
+decision unroll many stages) while their compiled executables are stable
+across runs.  JAX's persistent cache keys compiled executables on (HLO,
+compiler version, device) and lets every run after the first load them
+from disk — the shape of the reference's ahead-of-time build (its kernels
+compile once at `make`).
+
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads that variable itself, so nothing is configured in code); otherwise a
+fixed ``.jax_cache`` directory at the root of the checkout, so the path —
+part of the cache key — never moves between runs.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT = os.path.expanduser("~/.cache/hevcasm_tpu/jax")
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def enable_persistent_cache(path: str | None = None) -> None:
-    """Enable the on-disk compilation cache (idempotent).
+def cache_dir() -> str:
+    """The directory the persistent cache uses (see the module docstring)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CHECKOUT_CACHE_DIR
 
-    Honors HEVCASM_CACHE_DIR; pass path to override.  Entries taking
-    >= 2 s to compile are persisted.
-    """
+
+def enable_persistent_cache() -> str:
+    """Enable the on-disk compilation cache (idempotent); returns its
+    directory.  Entries taking >= 2 s to compile are persisted."""
     import jax
 
-    d = path or os.environ.get("HEVCASM_CACHE_DIR", _DEFAULT)
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(CHECKOUT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", CHECKOUT_CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    return cache_dir()

@@ -1,6 +1,6 @@
 // yuv_io: native frame I/O for raw planar YUV and Y4M files — the
 // data-loader role of the framework's runtime (the reference library has no
-// I/O; its consumers do, and a production TPU encode service needs frames
+// I/O; its consumers do, and a production encode service needs frames
 // streamed off storage without Python-loop overhead).
 //
 // Plain C ABI for ctypes.  Reads are positioned (pread) so concurrent

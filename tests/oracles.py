@@ -1,5 +1,5 @@
 """Scalar numpy oracles transcribing the *semantics* of the reference C
-kernels (cited per function), used to check the jnp/Pallas tiers bit-exactly.
+kernels (cited per function), used to check the jnp/XLA tiers bit-exactly.
 
 These are deliberately written as plain loops / direct formulas, structured
 differently from the batched matmul formulations in hevcasm_tpu, so that the

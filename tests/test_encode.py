@@ -54,7 +54,7 @@ def test_full_search_finds_planted_motion(rng):
 def test_aligned_windows_match_gather(rng):
     """The reshape-based aligned-window extractor (active when the window
     span is a multiple of the tile, e.g. the r=32/b=64 bench config) must be
-    bit-identical to the dynamic-slice gather path.  VERDICT r1 weak #2."""
+    bit-identical to the dynamic-slice gather path."""
     plane = rng.integers(0, 256, (200, 264), dtype=np.uint8)
     for tile, gr, gc, k in [(16, 4, 6, 2), (64, 2, 3, 2), (16, 3, 5, 3)]:
         size = k * tile
@@ -158,16 +158,16 @@ def test_encode_lossless_when_static(rng):
 
 
 def test_encode_gop_fast_path_matches_stages(rng):
-    """The full GOP (wavefront intra seed + P chain) composed with the
-    fast-path config (fused_dma, conforming intra) equals the staged
-    config bit-exactly — the production configuration is the verified one."""
+    """The full GOP (wavefront intra seed + P chain) with the default
+    (XLA) stages equals the all-REF configuration bit-exactly — the
+    production configuration is the verified one."""
     import dataclasses
 
     h, w = 128, 192
     base = rng.integers(0, 256, (3, h + 16, w + 16), dtype=np.uint8)
     frames = np.stack([base[t, t : t + h, 2 * t : 2 * t + w] for t in range(3)])
-    cfg_s = EncodeConfig(search_range=8, qp=32, intra_mode="wavefront")
-    cfg_f = dataclasses.replace(cfg_s, inter_impl="fused_dma")
+    cfg_f = EncodeConfig(search_range=8, qp=32, intra_mode="wavefront")
+    cfg_s = dataclasses.replace(cfg_f, refine_impl="ref", residual_impl="ref")
     out_s = encode_gop(jnp.asarray(frames), cfg_s)
     out_f = encode_gop(jnp.asarray(frames), cfg_f)
     np.testing.assert_array_equal(

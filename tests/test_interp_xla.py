@@ -1,4 +1,4 @@
-"""The MXU banded-matmul refinement must be bit-identical to the jnp FIR
+"""The banded-matmul refinement must be bit-identical to the jnp FIR
 path (motion.refine_quarter_pel), including argmin tie-breaking."""
 
 import numpy as np

@@ -48,26 +48,6 @@ def test_multiref_single_ref_matches_plain(rng):
     np.testing.assert_array_equal(np.asarray(plain["recon"]), np.asarray(multi["recon"]))
 
 
-def test_multiref_fused_paths_match_stages(rng):
-    """Single-pass multiref with the fused inter_impl modes == the staged
-    multiref path (same joint (ref, mv) selection feeding both)."""
-    h, w = 128, 192
-    base = rng.integers(0, 256, (h + 32, w + 32), dtype=np.uint8)
-    cur = base[5 : 5 + h, 7 : 7 + w]
-    refs = np.stack([base[:h, :w], base[9 : 9 + h, 2 : 2 + w], base[1 : 1 + h, 11 : 11 + w]])
-    want = encode_inter_frame_multiref(
-        jnp.asarray(cur), jnp.asarray(refs), EncodeConfig(search_range=8)
-    )
-    for impl in ("fused", "fused_batched", "fused_dma"):
-        got = encode_inter_frame_multiref(
-            jnp.asarray(cur), jnp.asarray(refs),
-            EncodeConfig(search_range=8, inter_impl=impl, fused_group=4),
-        )
-        assert np.array_equal(np.asarray(want["recon"]), np.asarray(got["recon"])), impl
-        assert np.array_equal(np.asarray(want["ref_idx"]), np.asarray(got["ref_idx"])), impl
-        assert np.array_equal(np.asarray(want["mvs"]), np.asarray(got["mvs"])), impl
-
-
 def test_multiref_k_scaling(rng):
     """The single-pass search handles growing k in one batched call; more
     references never hurt the score-selected quality."""

@@ -208,40 +208,13 @@ def test_pruned_pu_selection_matches_full(frames, layouts):
     assert mv_tiles.shape == (src.shape[0], k, k, 2)
 
 
-@pytest.mark.parametrize("layouts", [
-    ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter"),
-    ("2Nx2N", "NxN", "eighth"),
-])
-def test_decide_in_kernel_matches_integral_path(rng, layouts):
-    """The +-32 decide-in-kernel path (base_layout_decide: per-CTU grids,
-    PU aggregation, and argmin all in VMEM) == the integral-image path,
-    bit-exactly, for every output."""
-    h, w, r = 128, 192, 32
-    base = rng.integers(0, 256, (h + 80, w + 80), dtype=np.uint8)
-    cur = base[5 : 5 + h, 7 : 7 + w]
-    ref = base[:h, :w]
-    gr, gc = h // 64, w // 64
-    src = ctu_mod.tile_frame(jnp.asarray(cur), 64)
-    rp = ctu_mod.pad_frame(jnp.asarray(ref), r + 3, r + 4, r + 3, r + 4)
-    pos = motion.ctu_positions(gr, gc, 64)
-    win = motion.extract_windows(rp, pos + 3, 64 + 2 * r)
-    lam = partition.mv_lambda(32)
-
-    a = partition.select_pu_layout_pruned(
-        src, rp, pos, win, r, lam, layouts, ssd_grid)
-    b = partition.select_pu_layout_pruned(
-        src, rp, pos, win, r, lam, layouts, ssd_grid, grid=(gr, gc))
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
 def test_tu_selection_prices_real_bits(rng):
     """select_tu_recon's rate term is the REAL Exp-Golomb bit estimate:
     the per-CTU bits emitted by the frame residual pipeline equal
     encode/rate.bits_estimate on the quantized levels exactly.  (The r3
     proxy lam*nnz*tu measured r = -0.82 correlation against these bits
     across TU sizes — recorded in docs/DESIGN.md section 7 — which is why
-    the decision now prices bits directly, VERDICT r3 weak #2.)"""
+    the decision now prices bits directly)"""
     import jax.numpy as jnp
 
     from hevcasm_tpu.encode import ctu as ctu_mod
@@ -275,25 +248,3 @@ def test_tu_selection_prices_real_bits(rng):
         lv = levels.reshape(n, k, tu, tu)
         want = np.asarray([int(bits_estimate(lv[c])) for c in range(n)])
         np.testing.assert_array_equal(np.asarray(bits), want, err_msg=f"tu={tu}")
-
-
-def test_fc_decide_matches_base_layout_decide(rng):
-    # The fine/coarse decide kernel (measured slower on v5e, kept as a
-    # tested variant — docs/DESIGN.md section 8) must stay bit-exact with
-    # base_layout_decide at base=16.
-    import jax.numpy as jnp
-    from hevcasm_tpu.kernels.search_pallas import (
-        base_layout_decide, base_layout_decide_fc)
-
-    n = 3
-    src = jnp.asarray(rng.integers(0, 256, (n, 64, 64), dtype=np.uint8))
-    win = jnp.asarray(rng.integers(0, 256, (n, 128, 128), dtype=np.uint8))
-    pu_lists = (
-        tuple(range(16)),
-        tuple(range(8)), tuple(range(8, 16)),
-        tuple(t for t in range(16) if t % 4 < 2),
-        tuple(t for t in range(16) if t % 4 >= 2),
-    ) + tuple((t,) for t in range(16))
-    ref = np.asarray(base_layout_decide(src, win, 16, pu_lists))
-    got = np.asarray(base_layout_decide_fc(src, win, pu_lists))
-    np.testing.assert_array_equal(got, ref)

@@ -75,36 +75,12 @@ def test_rate_control_steers_bits(rng):
     assert qps[0] == 40 and qps[-1] != 40
 
 
-def test_rate_controlled_gop_fused_matches_staged(rng):
-    """The fused-tier rate-controlled GOP (traced qp in SMEM, in-kernel
-    Exp-Golomb bit counts) is bit-exact with the staged traced path —
-    same recons, same bit counts, same qp trajectory (VERDICT r3 #3)."""
-    frames = _clip(rng, 5, 128, 128, noise=10)
-    staged = encode_gop_rate_controlled(
-        jnp.asarray(frames), 6000.0, 32,
-        EncodeConfig(search_range=8, refine_impl="ref"),
-    )
-    for impl in ("fused", "fused_dma"):
-        fused = encode_gop_rate_controlled(
-            jnp.asarray(frames), 6000.0, 32,
-            EncodeConfig(search_range=8, inter_impl=impl),
-        )
-        np.testing.assert_array_equal(
-            np.asarray(staged["recon"]), np.asarray(fused["recon"]))
-        np.testing.assert_array_equal(
-            np.asarray(staged["bits"]), np.asarray(fused["bits"]))
-        np.testing.assert_array_equal(
-            np.asarray(staged["qp"]), np.asarray(fused["qp"]))
-
-
-@pytest.mark.parametrize("impl", ["stages", "fused"])
-def test_rate_control_out_of_range_qp_raises(rng, impl):
+def test_rate_control_out_of_range_qp_raises(rng):
     """A traced qp that drives the quantizer shift past the reference's
     asserted 16..27 window (quantize.c:162-165) fails loudly via checkify
-    instead of silently wrapping (VERDICT r3 weak #3)."""
+    instead of silently wrapping."""
     frames = _clip(rng, 3, 128, 128, noise=10)
-    cfg = EncodeConfig(search_range=8, inter_impl=impl,
-                       refine_impl="ref" if impl == "stages" else "mxu")
+    cfg = EncodeConfig(search_range=8, refine_impl="ref")
     with pytest.raises(Exception, match="outside"):
         # qp 60 -> shift = 21 + 10 - 3 = 28 > 27
         encode_gop_rate_controlled(
@@ -119,7 +95,7 @@ def test_rc_gop_b_frames(rng):
         encode_b_frame_traced_qp, encode_gop_rate_controlled)
 
     frames = jnp.asarray(_clip(rng, 5, 128, 192))
-    cfg = EncodeConfig(search_range=8, qp=32, inter_impl="fused_dma")
+    cfg = EncodeConfig(search_range=8, qp=32)
     out = encode_gop_rate_controlled(frames, 20000.0, 32, cfg, b_frames=True)
     assert out["recon"].shape == (4, 128, 192)
     assert np.asarray(out["bits"]).min() > 0
@@ -138,8 +114,3 @@ def test_traced_qp_rdo_config_raises(rng):
     cfg = EncodeConfig(search_range=8, qp=32, tu_sizes=(4, 8))
     with pytest.raises(ValueError, match="pu_decision/tu_sizes"):
         encode_inter_frame_traced_qp(frames[1], frames[0], jnp.int32(32), cfg)
-
-
-def test_fused_impl_requires_tu8():
-    with pytest.raises(ValueError, match="hardwires 8x8 TUs"):
-        EncodeConfig(tu=4, inter_impl="fused_dma")

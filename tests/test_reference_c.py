@@ -13,7 +13,7 @@ tier is swept against them over the reference's own shape matrices:
   SSD: log2 2..6 (ssd.c:157); SATD 2/4/8 (hadamard.c)
 
 The optimized tiers are separately proven bit-equal to the REF tier
-(tests/test_xla_opt.py, test_pallas.py, ...), so transitivity covers them.
+(tests/test_xla_opt.py, test_xla_paths.py, ...), so transitivity covers them.
 
 Skips when the reference tree is not mounted.
 """

@@ -1,4 +1,4 @@
-"""residual_pipeline_frame (whole-frame block-diagonal MXU formulation) must
+"""residual_pipeline_frame (whole-frame block-diagonal matmul formulation) must
 be bit-identical to the per-TU REF composition for every TU size and the
 DST-VII intra case."""
 
@@ -50,7 +50,7 @@ def test_frame_pipeline_dst(rng):
 
 
 def test_loop_default_is_mxu_and_bit_identical(rng):
-    """encode_inter_frame default (mxu residual + mxu refine) must equal the
+    """encode_inter_frame default (XLA residual + XLA refine) must equal the
     all-REF configuration bit for bit."""
     from hevcasm_tpu.encode.loop import encode_inter_frame
 

@@ -95,23 +95,6 @@ def test_closed_loop_gop(rng):
     assert psnrs.min() > 35.0
 
 
-def test_inter_frame_yuv_fused_matches_staged(rng):
-    """The YUV P frame's luma rides cfg.inter_impl: fused kernels (incl.
-    the DMA variant) are bit-exact with the staged composition across all
-    three planes (chroma MC keys off identical luma MVs)."""
-    clip = _yuv_clip(rng, 2, 128, 192)
-    cur = YuvFrame(clip.y[1], clip.cb[1], clip.cr[1])
-    ref = YuvFrame(clip.y[0], clip.cb[0], clip.cr[0])
-    base = encode_inter_frame_yuv(cur, ref, EncodeConfig(search_range=8, qp=27))
-    for impl in ("fused_batched", "fused_dma"):
-        got = encode_inter_frame_yuv(
-            cur, ref, EncodeConfig(search_range=8, qp=27, inter_impl=impl))
-        for plane in ("y", "cb", "cr"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(base["recon"], plane)),
-                np.asarray(getattr(got["recon"], plane)), err_msg=impl)
-
-
 def test_closed_loop_gop_yuv(rng):
     """Closed-loop YUV GOP == the per-frame chain on reconstructions,
     bit-exact, and conforming quality over the chain."""
@@ -149,27 +132,6 @@ def test_closed_loop_gop_yuv(rng):
             np.testing.assert_array_equal(
                 np.asarray(getattr(out["recon"], plane)[t]),
                 np.asarray(getattr(prev, plane)), err_msg=f"t={t} {plane}")
-
-
-def test_b_frame_yuv_fused_matches_staged(rng):
-    # The fused bi kernel (bi_ctu_fused_dma: in-kernel window DMA,
-    # per-reference QPEL_SCORE refinement, (r0+r1+64)>>7 combine, shared
-    # residual) must be bit-exact with the staged composition.
-    clip = _yuv_clip(rng, 3, 128, 192)
-    cur = YuvFrame(clip.y[1], clip.cb[1], clip.cr[1])
-    r0 = YuvFrame(clip.y[0], clip.cb[0], clip.cr[0])
-    r1 = YuvFrame(clip.y[2], clip.cb[2], clip.cr[2])
-    cfg_s = EncodeConfig(search_range=8, qp=30, inter_impl="stages")
-    cfg_f = EncodeConfig(search_range=8, qp=30, inter_impl="fused_dma")
-    outs = encode_b_frame_yuv(cur, r0, r1, cfg_s)
-    outf = encode_b_frame_yuv(cur, r0, r1, cfg_f)
-    for plane in ("y", "cb", "cr"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(outf["recon"], plane)),
-            np.asarray(getattr(outs["recon"], plane)), err_msg=plane)
-    np.testing.assert_array_equal(np.asarray(outf["mvs0"]), np.asarray(outs["mvs0"]))
-    np.testing.assert_array_equal(np.asarray(outf["mvs1"]), np.asarray(outs["mvs1"]))
-    assert int(outf["nnz"]) == int(outs["nnz"])
 
 
 def test_closed_loop_gop_yuv_b(rng):

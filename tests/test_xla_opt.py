@@ -1,4 +1,4 @@
-"""The optimized MXU tier (kernels/xla_opt) must be bit-exact with the REF
+"""The optimized XLA tier (kernels/xla_opt) must be bit-exact with the REF
 tier — the same contract the reference enforces between its asm tiers and the
 C reference (hevcasm_test.c:96-104)."""
 
@@ -45,7 +45,7 @@ def test_satd_matches_ref(rng, n):
 
 
 def test_ssd_grid_matches_scalar(rng):
-    """MXU ssd_grid == REF scan formulation == scalar oracle."""
+    """XLA ssd_grid == REF scan formulation == scalar oracle."""
     n, h, w, dys, dxs = 3, 16, 16, 7, 9
     src = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
     win = rng.integers(0, 256, (n, h + dys - 1, w + dxs - 1), dtype=np.uint8)

@@ -1,25 +1,31 @@
 """Cost/benefit of the variable-block-structure modes at 1080p on the
 current backend: frame time and PSNR for fixed-PU/TU vs per-CTU PU decision
-vs per-CTU TU selection.  Diagnostics only (the driver bench stays on the
-fixed fast path; this tool quantifies what the decisions buy)."""
+vs per-CTU TU selection.  Diagnostics only (bench.py stays on the fixed
+path; this tool quantifies what the decisions buy).  Needs a GPU; prints
+the card's name and power limit first, and exits non-zero if any variant
+fails:  python tools/bench_rdo.py"""
 
 from __future__ import annotations
 
+import os
 import sys
 import time
+import traceback
 
 import numpy as np
 
-sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(
-    __import__("os").path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main() -> int:
     import jax
     import jax.numpy as jnp
 
     from hevcasm_tpu.utils.cache import enable_persistent_cache
+    from hevcasm_tpu.utils.timing import card_label, require_gpu
 
+    require_gpu("bench_rdo")
+    print(f"card: {card_label().splitlines()[0]}", flush=True)
     enable_persistent_cache()
 
     from hevcasm_tpu.encode import EncodeConfig
@@ -40,34 +46,19 @@ def main():
     cur[h // 2 :] = base[32 - 5 + h // 2 : 32 - 5 + h, 32 - 7 : 32 - 7 + w]
     cur, ref = jnp.asarray(cur), jnp.asarray(ref)
 
-    def timed(cfg, iters=20, reps=2):
-        @jax.jit
-        def chain(c, r0):
-            def f(i, acc):
-                out = encode_inter_frame(c, r0 + (i % 2).astype(r0.dtype), cfg)
-                return acc + jnp.sum(out["recon"][0].astype(jnp.uint32))
-            return jax.lax.fori_loop(0, iters, f, jnp.uint32(0))
-
-        x = int(chain(cur, ref))
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            x ^= int(chain(cur, ref))
-            best = min(best, time.perf_counter() - t0)
-        return best / iters
-
-    @jax.jit
-    def floor_chain(c, r0):
-        def f(i, acc):
-            return acc + (c[0, 0] + i).astype(jnp.uint32)
-        return jax.lax.fori_loop(0, 20, f, jnp.uint32(0))
-    int(floor_chain(cur, ref))
-    t0 = time.perf_counter(); int(floor_chain(cur, ref))
-    floor = (time.perf_counter() - t0) / 20
+    def timed(cfg, iters=10):
+        """Warm ms per frame over back-to-back calls ended by
+        block_until_ready."""
+        jax.block_until_ready(encode_inter_frame(cur, ref, cfg))
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = encode_inter_frame(cur, ref, cfg)
+        jax.block_until_ready(out)
+        return (time.perf_counter() - t0) / iters
 
     all_layouts = ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter", "eighth")
     variants = {
-        "fixed (fused_dma)": EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"),
+        "fixed": EncodeConfig(search_range=32, qp=32),
         "pu_decision": EncodeConfig(search_range=32, qp=32, pu_decision=True),
         "pu_amp+8x8": EncodeConfig(search_range=32, qp=32, pu_decision=True,
                                    pu_layouts=all_layouts),
@@ -75,11 +66,12 @@ def main():
         "pu+tu": EncodeConfig(search_range=32, qp=32, pu_decision=True,
                               tu_sizes=(4, 8, 16, 32)),
     }
+    failed = []
     for name, cfg in variants.items():
         try:
             out = encode_inter_frame(cur, ref, cfg)
             p = float(out["psnr_db"])
-            t = timed(cfg) - floor
+            t = timed(cfg)
             extra = ""
             if "pu_layout" in out:
                 lv = np.asarray(out["pu_layout"])
@@ -91,9 +83,12 @@ def main():
                     str(int(np.sum(ch == k))) for k in range(4))
             print(f"{name:18s} {t*1e3:7.2f} ms/frame  psnr {p:6.2f} dB{extra}",
                   flush=True)
-        except Exception as e:
-            print(f"{name:18s} FAILED {type(e).__name__}: {str(e)[:150]}", flush=True)
+        except Exception:  # noqa: BLE001 - report every variant, then fail
+            traceback.print_exc()
+            print(f"{name:18s} FAILED", flush=True)
+            failed.append(name)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
